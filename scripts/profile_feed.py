@@ -31,7 +31,7 @@ def main():
     ap.add_argument("--chunk", type=int, default=1 << 20)
     ap.add_argument("--min-len", type=int, default=31)
     ap.add_argument("--skip-upload", action="store_true",
-                    help="host-only stages (no TPU contention)")
+                    help="host-only stages (no device contention)")
     args = ap.parse_args()
 
     from sketch_rna_tpu.io import native

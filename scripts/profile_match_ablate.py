@@ -28,10 +28,8 @@ import jax
 import jax.numpy as jnp
 
 from sketch_rna_tpu.utils.compilecache import enable_compilation_cache
-from sketch_rna_tpu.utils.linksettle import settle_link
 
 enable_compilation_cache()
-settle_link()
 
 from sketch_rna_tpu.config import QuantConfig
 from sketch_rna_tpu.index.artifact import load_index

@@ -1,4 +1,4 @@
-"""Component-level TPU profiling of the current quant step (dev tool)."""
+"""Component-level device profiling of the current quant step (dev tool)."""
 
 import sys, os, time
 

@@ -3,7 +3,7 @@
 Drives the exact CLI streaming route (native scan -> chunks_from_scan ->
 stream.quantify_streamed) but prints the phase breakdown, per-chunk
 rates, and one JSON line — the measurement harness for the round-4
-streaming-gap work (VERDICT r3 next-round #1).
+streaming-gap work.
 
 Usage: python scripts/profile_stream.py INDEX.npz READS.fq [--csv OUT]
        [--chunk-reads N] [--class-capacity N]
@@ -39,9 +39,6 @@ def main():
     from sketch_rna_tpu.index.artifact import load_index
     from sketch_rna_tpu.io import native
     from sketch_rna_tpu.stream import quantify_streamed
-    from sketch_rna_tpu.utils.linksettle import settle_link
-
-    print(f"link settle: {settle_link():.2f}s", flush=True)
     t_all = time.perf_counter()
     idx = load_index(args.index)
     ks = tuple(idx.kmer_lengths)

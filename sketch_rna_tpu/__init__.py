@@ -1,4 +1,4 @@
-"""sketch_rna_tpu — TPU-native RNA-seq isoform quantification engine.
+"""sketch_rna_tpu — accelerator-native RNA-seq isoform quantification engine.
 
 A from-scratch JAX/XLA/Pallas re-architecture of the alignment-free
 FracMinHash sketch -> candidate matching -> EM quantification pipeline of
@@ -7,7 +7,7 @@ the reference C++ tool (Codfishz/Sketch-for-RNA-seq, see SURVEY.md).
 Layer map (mirrors SURVEY.md §7.2):
   io/      host-side FASTA/FASTQ parsing, validation, 2-bit packing
            (reference: src/data_io.cpp, src/main.cpp:107-151)
-  hash/    ntHash2 forward rolling hash, TPU-vectorized
+  hash/    ntHash2 forward rolling hash, vectorised
            (reference: nthash library usage at src/sketch.cpp:31-37)
   sketch/  FracMinHash threshold + set dedup (reference: src/sketch.cpp:24-39)
   index/   device-built inverted index as sorted keys + CSR postings

@@ -12,7 +12,7 @@ system"):
   em_epsilon        = 1e-10  (src/isoform_assignment.cpp:28)
   kmer_lengths      = (31,)  (src/main.cpp:215 default)
 
-TPU-specific capacity knobs (raggedness bounds, SURVEY.md §7.4) have no
+Device capacity knobs (raggedness bounds, SURVEY.md §7.4) have no
 reference equivalent; overflow past any capacity is counted and reported,
 never silent.
 """
@@ -34,7 +34,7 @@ class QuantConfig:
     pseudocount: float = 0.01
     em_epsilon: float = 1e-10
 
-    # --- TPU capacity / batching knobs ----------------------------------
+    # --- device capacity / batching knobs -------------------------------
     # Max reads per device batch through the hash+match kernels.
     batch_size: int = 8192
     # Padded read length (reads are padded/bucketed to this many bases).
@@ -56,7 +56,7 @@ class QuantConfig:
     # (reference keeps all; overflow keeps top-score and is counted).
     candidate_capacity: int = 64
     # dtype for EM/assignment accumulation: "float64" matches the reference
-    # (C++ double) bit-for-bit on CPU; use "float32" on TPU.
+    # (C++ double) bit-for-bit on CPU; "float32" is the accelerator default.
     em_dtype: str = "float32"
     # Tiered posting-expansion windows: batch rows sort by event count and
     # each tier gets a window sized to its rank (match/rowmatch.tier_plan)
@@ -68,24 +68,11 @@ class QuantConfig:
     # event grouping (truncates only the final set).  On any candidate
     # spill the engines rerun with False (exactness over speed).
     match_per_k_tables: bool = True
-    # (Removed in round 3: use_pallas_sketch.  Measured in the production
-    # quant on a real v5e — jnp/XLA 800.4k reads/s vs fused Pallas kernel
-    # 720.1k vs unfused Pallas hash 795.8k: XLA fuses the windowed-XOR
-    # hash + row sorts as well as the hand kernel, so the dispatch branch
-    # is gone.  The kernels remain in hash/pallas_hash.py as a validated
-    # negative result; see docs/DESIGN.md.)
-    # One-hot MXU E-step (em/em.py "MXU one-hot E-step"): reformulates the
-    # EM gather/scatter as dense matmuls over a 2D-tiled pi — measured
-    # 3.7x per iteration on TPU at small T.  "auto" enables it on TPU for
-    # float32 EM when the one-hot footprint fits (mxu_em_auto); "on"/"off"
-    # force it.  float64 parity runs always use the scatter path.
-    em_mxu: str = "auto"
     # Scatter-free posterior accumulation (em/segsum.py): lanes sort by
     # transcript ONCE per quant, then every EM iteration reduces the
     # posterior sums with a segmented scan + one [T] gather instead of a
-    # duplicate-index scatter-add.  Round-3 CHAINED on-chip timing shows
-    # the scatter wins at every tested shape (em.resolve_em_segsum), so
-    # "auto" now means scatter; "on" forces the segsum path.
+    # duplicate-index scatter-add.  "auto" means the scatter (see
+    # em.resolve_em_segsum); "on" forces the segsum path.
     em_segsum: str = "auto"
     # Collapse reads with identical candidate profiles into weighted
     # equivalence classes before EM (exact; EM cost then scales with
@@ -101,13 +88,13 @@ class QuantConfig:
     em_fold_singletons: bool = True
     # Streaming path: class-buffer row capacity (bounds DISTINCT candidate
     # profiles, i.e. transcriptome ambiguity — not read count) and reads
-    # per host->device super-chunk.  8M rows ~ 4 GB HBM at C=64 — sized
-    # so GENCODE-scale multi-10M-read runs hold their global classes on
-    # device (round-4 measurement: synthetic uniform 8M reads already
-    # form 2.03M distinct classes, and a drain round-trips ~0.5 GB
-    # through a 23 MB/s D2H link per segment).  Buffers are additionally
-    # bounded by the dataset's own row count when it is known up front,
-    # so small runs stay small.
+    # per host->device super-chunk.  8M rows ~ 4 GB at C=64 — sized so
+    # GENCODE-scale multi-10M-read runs hold their global classes on
+    # device (synthetic uniform 8M reads already form 2.03M distinct
+    # classes, and every drain copies its segment to the host).  Buffers
+    # are additionally bounded by the dataset's own row count when it is
+    # known up front, so small runs stay small.  Not yet re-derived from
+    # the GPU's memory (ROADMAP Speed item 7).
     stream_class_capacity: int = 1 << 23
     stream_chunk_reads: int = 1 << 20
     # Streaming dual-buffer split: classes with at most this many
@@ -115,7 +102,7 @@ class QuantConfig:
     # buffer (lossless — class rows are rank-ordered, so narrow classes
     # have only zero lanes past the split), while wider classes go to a
     # small full-width side buffer.  4x less HBM and compaction work
-    # than a C=64-wide buffer; measured round 4: <1% of GENCODE-scale
+    # than a C=64-wide buffer; <1% of GENCODE-scale
     # classes exceed 16 candidates.  0 disables the split (single
     # full-width buffer).
     stream_narrow_width: int = 16

@@ -7,9 +7,10 @@ The framework's two parallel axes (SURVEY.md §2 parallelism inventory):
             transcriptomes (BASELINE config 4); match events are gathered
             across this axis before grouping.
 
-The reference has neither (single thread); these are new, TPU-native
-structure.  Collectives ride ICI inside a slice; with
-jax.distributed.initialize() the same code spans hosts over DCN.
+The reference has neither (single thread); these are new structure.
+Collectives run over the devices' interconnect (NVLink between the
+cards of one host); with jax.distributed.initialize() the same code
+spans hosts.
 """
 
 from __future__ import annotations
@@ -21,11 +22,26 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
-# Per-device HBM the replicated index may occupy before the mesh chooser
-# widens the index axis.  Default: a quarter of a v5e's 16 GiB — the rest
-# stays free for read chunks, event windows and EM tables.  Override via
-# SKETCH_TPU_INDEX_HBM_BUDGET (bytes).
-DEFAULT_INDEX_HBM_BUDGET = 4 << 30
+# Per-device memory the replicated index may occupy before the mesh
+# chooser widens the index axis: a quarter of what the device lets the
+# process allocate; the rest stays free for read chunks, event windows
+# and EM tables.  The CPU backend reports no limit, so it gets a fixed
+# budget.  Override via SKETCH_TPU_INDEX_HBM_BUDGET (bytes).
+CPU_INDEX_BUDGET = 4 << 30
+
+
+def index_budget_bytes(device=None) -> int:
+    """Bytes one device may spend on an index replica (see above)."""
+    device = device if device is not None else jax.local_devices()[0]
+    if device.platform == "cpu":
+        return CPU_INDEX_BUDGET
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise RuntimeError(
+            f"{device.device_kind} reports no memory limit; set "
+            "SKETCH_TPU_INDEX_HBM_BUDGET to the index budget in bytes"
+        )
+    return int(stats["bytes_limit"]) // 4
 
 
 def index_device_bytes(index) -> int:
@@ -64,15 +80,14 @@ def mesh_factor(
     splits; any (dp, ip) factorization works (tested through (2, 4)).
 
     index_bytes (see index_device_bytes) auto-widens the cap: when a
-    full replica exceeds the per-device HBM budget, the index axis grows
-    until each shard's share fits — a fit REQUIREMENT, so it overrides
-    the keep-data-axis-large preference (a mesh that OOMs has no
-    throughput to preserve)."""
+    full replica exceeds the per-device budget (index_budget_bytes), the
+    index axis grows until each shard's share fits — a fit REQUIREMENT,
+    so it overrides the keep-data-axis-large preference (a mesh that
+    OOMs has no throughput to preserve)."""
     index = 1
     if index_bytes is not None and n_devices > 1:
-        budget = hbm_budget_bytes or int(
-            os.environ.get("SKETCH_TPU_INDEX_HBM_BUDGET", DEFAULT_INDEX_HBM_BUDGET)
-        )
+        env = os.environ.get("SKETCH_TPU_INDEX_HBM_BUDGET")
+        budget = hbm_budget_bytes or (int(env) if env else index_budget_bytes())
         # Fit first: the smallest divisor of n_devices whose per-shard
         # share fits the budget (n_devices itself if none does).
         for d in range(1, n_devices + 1):

@@ -5,7 +5,7 @@ Each host process parses only its byte-range slice of the FASTQ
 rows to a global device array via jax.make_array_from_process_local_data
 over the ("data", "index") mesh spanning every process's devices.  The
 single jitted shard_map step (dist/quant_sharded.py) then runs SPMD
-across hosts: collectives ride ICI within a slice and DCN across hosts,
+across hosts: collectives ride the devices' interconnect within a host and the network across hosts,
 and outputs come back fully replicated so every process holds the final
 pi / counts.
 

@@ -5,7 +5,7 @@ Per-device flow (SURVEY.md §5 "Distributed communication backend"):
   1. sketch the local read shard (pure local compute),
   2. probe + expand match events against the LOCAL hash-range index
      shard — hashes owned by other shards simply don't match locally,
-  3. all_gather the flat events across the "index" axis (ICI), so every
+  3. all_gather the flat events across the "index" axis, so every
      device holds all events for its read shard; per-(read, transcript)
      counts then merge across index shards exactly (this realizes the
      cross-shard max/threshold requirement of SURVEY.md §7.4),
@@ -60,7 +60,6 @@ def _body(
     pseudocount,
     em_epsilon,
     em_dtype,
-    use_mxu,
 ):
     Bl = codes.shape[0]  # local read rows
     K = len(kmer_lengths)
@@ -119,7 +118,6 @@ def _body(
         epsilon=em_epsilon,
         dtype=em_dtype,
         axis_name="data",
-        use_mxu=use_mxu,
     )
     weighted, has_entry = assign_reads_tables(
         tbl_tid,
@@ -128,7 +126,6 @@ def _body(
         num_transcripts=num_transcripts,
         dtype=em_dtype,
         axis_name="data",
-        use_mxu=use_mxu,
     )
     stats = {
         "expand_dropped": jax.lax.psum(
@@ -158,7 +155,6 @@ def _body(
         "pseudocount",
         "em_epsilon",
         "em_dtype",
-        "use_mxu",
     ),
 )
 def quant_step_sharded(
@@ -182,7 +178,6 @@ def quant_step_sharded(
     pseudocount: float = 0.01,
     em_epsilon: float = 1e-10,
     em_dtype: str = "float32",
-    use_mxu: bool = False,
 ):
     body = partial(
         _body,
@@ -198,7 +193,6 @@ def quant_step_sharded(
         pseudocount=pseudocount,
         em_epsilon=em_epsilon,
         em_dtype=em_dtype,
-        use_mxu=use_mxu,
     )
     K = len(kmer_lengths)
     in_specs = (

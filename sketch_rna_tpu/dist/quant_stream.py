@@ -3,7 +3,7 @@ per-device class buffer.
 
 The original sharded step (quant_sharded.py, kept as the correctness
 reference) holds the ENTIRE read set as one [B, L] sharded array — at
-50M x 150bp that alone blows HBM (VERDICT r1 weak #4).  This engine
+50M x 150bp that alone blows HBM.  This engine
 feeds [nb, B, L] chunk stacks instead and keeps device memory flat:
 
   program 1 (stream_sharded_scan):  per device-shard, a lax.scan over
@@ -363,7 +363,6 @@ def stream_sharded_scan(
         "pseudocount",
         "em_epsilon",
         "em_dtype",
-        "use_mxu",
         "use_segsum",
         "nm_pad",
         "nmid_pad",
@@ -389,7 +388,6 @@ def em_assign_sharded(
     pseudocount: float = 0.01,
     em_epsilon: float = 1e-10,
     em_dtype: str = "float32",
-    use_mxu: bool = False,
     use_segsum: bool = False,
     nm_pad: int = 0,
     nmid_pad: int = 0,
@@ -445,7 +443,6 @@ def em_assign_sharded(
             epsilon=em_epsilon,
             dtype=em_dtype,
             axis_name="data",
-            use_mxu=use_mxu,
             use_segsum=use_segsum,
             static_base=static_base,
             static_has=static_has,

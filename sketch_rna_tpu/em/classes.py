@@ -318,8 +318,8 @@ def tier_partition(
     Per-tier counts are recomputed locally from (score_c, w_c) — exact,
     and self-contained so shards with differing fills share one program.
     np_pad > 0 adds a width-2 tier for exactly-2-candidate classes
-    (halves their EM lanes vs the narrow tier; round-3 measurement:
-    ~31% of non-singleton classes).
+    (halves their EM lanes vs the narrow tier; ~31% of non-singleton
+    classes on the bench transcriptome).
     Returns (tables, static_base, static_has) as build_class_tables.
     """
     m_pad = tid_c.shape[0]

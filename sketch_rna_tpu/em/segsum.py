@@ -2,10 +2,8 @@
 
 The per-iteration posterior sum `ps[t] = Σ post[lane] over lanes with
 tid==t` is the EM hot op (reference: the read->transcript accumulation
-loop in src/isoform_assignment.cpp:31-52).  XLA lowers a duplicate-index
-`scatter-add` on TPU to a serialized update loop, which dominates the
-iteration at GENCODE scale (tens of ms per pass at ~1.4M lanes,
-T=250k).
+loop in src/isoform_assignment.cpp:31-52), a duplicate-index
+`scatter-add` that some backends lower to a serialized update loop.
 
 This module replaces it with a layout trick: the lane->transcript keys
 are IDENTICAL across all EM iterations, so we sort the lanes by tid ONCE
@@ -40,7 +38,7 @@ from typing import NamedTuple, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 
-BLOCK = 512  # VPU-friendly width; bounds within-block f32 error
+BLOCK = 512  # vector-friendly width; bounds within-block f32 error
 
 
 class SegsumPlan(NamedTuple):

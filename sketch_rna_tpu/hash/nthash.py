@@ -1,4 +1,4 @@
-"""ntHash2 forward rolling k-mer hash, re-derived for TPU execution.
+"""ntHash2 forward rolling k-mer hash, re-derived for vector execution.
 
 The reference calls the external ntHash 2.x C++ library with one hash
 function and uses the *forward-strand* hash only, implicitly truncated to
@@ -16,7 +16,7 @@ algorithm (Kazemi et al., "ntHash2") from its definition:
     maintained by the rolling update
         fh(i+1) = srol(fh(i)) ^ srol^k(seed[s[i]]) ^ seed[s[i+k]].
 
-TPU-first design (SURVEY.md §7.2 step 2): instead of translating the
+Accelerator design (SURVEY.md §7.2 step 2): instead of translating the
 sequential rolling recurrence, we exploit that the hash is a pure XOR of
 per-offset *rotated seeds*.  For a fixed k we precompute on the host the
 4*k constants  T[j][b] = srol^(k-1-j)(seed_b)  and evaluate every k-mer of
@@ -132,7 +132,7 @@ def nthash_batch_u32(codes: jnp.ndarray, k: int) -> jnp.ndarray:
       callers apply the validity mask.
 
     The 4-way seed lookup is done with bit-selects (codes are 2-bit), which
-    XLA fuses into one VPU pass; there is no gather and no scan.
+    XLA fuses into one elementwise pass; there is no gather and no scan.
     """
     if codes.ndim != 2:
         raise ValueError(f"codes must be [B, L], got {codes.shape}")

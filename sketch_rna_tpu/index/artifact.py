@@ -2,7 +2,7 @@
 
 Replaces the reference's custom binary stream format (save_index /
 load_index, src/data_io.cpp:165-304) with flat arrays that load straight
-into device buffers (SURVEY.md §5 "Checkpoint / resume" TPU equivalent):
+into device buffers (SURVEY.md §5 "Checkpoint / resume" equivalent):
 
   per k:  keys    [U]   uint32, sorted distinct sketch hashes
           row_ptr [U+1] int32,  CSR offsets into postings

@@ -1,18 +1,23 @@
 """ctypes bindings to the native fastio library (native/fastio.cpp).
 
-Builds the shared library on demand (make) and exposes drop-in
+The library is built from the committed sources by `make -C native`
+before its first use in a process (a no-op when it is up to date, so a
+stale or foreign copy is never loaded as is), and exposes drop-in
 replacements for the Python parsers:
   pack_fastq_native(path, min_len, pad_len) -> (PackedReads, stats)
   load_fasta_native(path)                   -> FastaRecords
 
-Falls back are the callers' responsibility: native_available() gates use,
-and the pure-Python parsers in io/fasta.py, io/fastq.py remain the
-semantic reference (tests assert both agree).
+A failed build or load raises NativeUnavailable; native_available()
+answers the question without raising.  The pure-Python parsers in
+io/fasta.py and io/fastq.py remain the semantic reference (tests assert
+both agree).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -28,41 +33,56 @@ log = logging.getLogger(__name__)
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
 _SO_PATH = os.path.join(_NATIVE_DIR, "libfastio.so")
+# Serialises `make` across processes (parallel test workers, multi-process
+# quant): two concurrent builds would write the library while another
+# process loads it.
+_BUILD_LOCK = os.path.join(_NATIVE_DIR, ".build.lock")
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_build_failed = False
+_load_error: Optional[str] = None
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _build_failed
+class NativeUnavailable(RuntimeError):
+    """The native fastio library could not be built or loaded."""
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Hold the cross-process lock under which native/ is built and the
+    library is opened."""
+    with open(_BUILD_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib, _load_error
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if _build_failed:
-            return None
-        if not os.path.exists(_SO_PATH):
-            src = os.path.join(_NATIVE_DIR, "fastio.cpp")
-            if not os.path.exists(src):
-                _build_failed = True
-                return None
-            try:
+        if _load_error is not None:
+            raise NativeUnavailable(_load_error)
+        try:
+            with build_lock():
                 subprocess.run(
-                    ["make", "-C", _NATIVE_DIR],
+                    ["make", "-C", _NATIVE_DIR, "libfastio.so"],
                     check=True,
                     capture_output=True,
                     timeout=300,
                 )
-            except Exception as e:  # compiler missing, etc.
-                log.warning("native fastio build failed (%s); using Python parsers", e)
-                _build_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError as e:
-            log.warning("native fastio load failed (%s)", e)
-            _build_failed = True
-            return None
+                lib = ctypes.CDLL(_SO_PATH)
+        except subprocess.CalledProcessError as e:
+            _load_error = (
+                f"native fastio build failed: {e.stderr.decode(errors='replace')}"
+            )
+            raise NativeUnavailable(_load_error) from e
+        except (OSError, subprocess.SubprocessError) as e:
+            _load_error = f"native fastio build or load failed: {e}"
+            raise NativeUnavailable(_load_error) from e
         lib.fastq_open_scan.restype = ctypes.c_void_p
         lib.fastq_open_scan.argtypes = [
             ctypes.c_char_p,
@@ -139,7 +159,11 @@ def _load() -> Optional[ctypes.CDLL]:
 
 
 def native_available() -> bool:
-    return _load() is not None
+    try:
+        _load()
+    except NativeUnavailable:
+        return False
+    return True
 
 
 def pack_fastq_native(
@@ -156,8 +180,6 @@ def pack_fastq_native(
     last-wins duplicate IDs.
     """
     lib = _load()
-    if lib is None:
-        raise RuntimeError("native fastio unavailable")
     n_valid = ctypes.c_int64()
     n_seen = ctypes.c_int64()
     n_invalid = ctypes.c_int64()
@@ -213,8 +235,6 @@ class NativeFastqScan:
 
     def __init__(self, path: str, min_len: int, scan_threads: int = 0):
         lib = _load()
-        if lib is None:
-            raise RuntimeError("native fastio unavailable")
         self._lib = lib
         n_valid = ctypes.c_int64()
         n_seen = ctypes.c_int64()
@@ -393,7 +413,7 @@ class LazyScanFeed:
     Construction returns immediately; the scan (mmap + parallel
     byte-range parse + dedup — several seconds at 32M reads) overlaps
     whatever the caller does next: at GENCODE streaming scale that is
-    the device index upload + settle (stream.quantify_streamed's
+    the device index upload (stream.quantify_streamed's
     index_prep), which previously serialized after the scan.  Any
     attribute needing scan results (num_reads, max_len, pad_len,
     iteration) joins the thread first; scan errors re-raise there.
@@ -487,8 +507,6 @@ def iter_fastq_chunks_native(
 
 def load_fasta_native(path: str) -> FastaRecords:
     lib = _load()
-    if lib is None:
-        raise RuntimeError("native fastio unavailable")
     n_records = ctypes.c_int64()
     n_invalid = ctypes.c_int64()
     h = lib.fasta_open_scan(path.encode(), ctypes.byref(n_records), ctypes.byref(n_invalid))

@@ -7,7 +7,7 @@ whole sequence and the record is dropped.
 
 Packing maps bases to 2-bit codes A=0, C=1, G=2, T=3 (the order the hash
 seed table uses) and pads reads into [B, L] uint8 arrays with a lengths
-vector, the fixed-shape layout the TPU kernels consume (SURVEY.md §7.2
+vector, the fixed-shape layout the device programs consume (SURVEY.md §7.2
 step 1).
 """
 

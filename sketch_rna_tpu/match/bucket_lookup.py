@@ -1,7 +1,7 @@
 """Bucketed hash lookup: the index probe as ONE contiguous row gather.
 
 The sorted-array binary search (jnp.searchsorted) costs log2(U) dependent
-random gathers per probe (~40 ms per 262k probes on v5e).  Because
+random gathers per probe.  Because
 FracMinHash-kept hashes are uniform in [0, threshold], a direct-address
 bucket table with power-of-two bucket count has O(1) expected occupancy:
 
@@ -38,13 +38,11 @@ def build_bucket_table(
 ) -> BucketTable:
     """Host-side construction from a k's sorted CSR key arrays.
 
-    Bucket-count choice (measured on v5e, 8M-key GENCODE-scale table,
-    8192x72-probe batch): probe time FALLS as the table coarsens even
-    though each fetched row widens — 18.5 ms at load 2 (nb=4.2M, 39
-    lanes) down to 7.5 ms at load 16 (nb=512k, 123 lanes) — then rises
-    once the packed row exceeds one native 128-lane vector tile (load
-    32, 204 lanes: 10.3 ms).  So: start fine (target_load) and merge
-    bucket pairs while the resulting 3*mb row still fits max_row_lanes.
+    Bucket-count choice: coarser tables mean fewer, wider row fetches;
+    on the accelerator the design was first tuned on, probe time fell as
+    the table coarsened until the packed row outgrew 128 lanes.  So:
+    start fine (target_load) and merge bucket pairs while the resulting
+    3*mb row still fits max_row_lanes.  (Not yet re-tuned on the GPU.)
     Merging halves nb and recomputes the exact max occupancy from the
     pairwise-summed histogram — no re-bucketing pass."""
     U = int(keys.shape[0])
@@ -107,8 +105,8 @@ def build_bucket_table_device(
 
     Numerically identical to build_bucket_table (tests pin equality) but
     ships only the CSR arrays over the host->device link — ~2.6x fewer
-    bytes than the packed table at GENCODE scale (122 MB vs 316 MB),
-    which matters on tunneled links sustaining tens of MB/s.  The build
+    bytes than the packed table at GENCODE scale (122 MB vs 316 MB).
+    The build
     itself is three unique-index scatters over U lanes (keys are sorted,
     so each bucket is a contiguous run and every (bucket, slot) target
     is distinct).

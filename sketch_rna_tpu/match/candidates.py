@@ -1,4 +1,4 @@
-"""Candidate-transcript extraction ("sparse chaining"), TPU-vectorized.
+"""Candidate-transcript extraction ("sparse chaining"), vectorised.
 
 Replaces the per-read hash-map counting of the reference
 (sparse_chain, src/sparse_chaining.cpp:29-115) with a fully batched

@@ -4,7 +4,7 @@ Replaces the inner loops of sparse_chain (reference
 src/sparse_chaining.cpp:48-73): per read-sketch hash, find the posting
 list and emit one (read, transcript) event per posting.
 
-TPU-first shape: the hash-map probe becomes a batched binary search over
+Accelerator shape: the hash-map probe becomes a batched binary search over
 the sorted key array (jnp.searchsorted); the per-hash variable-length
 posting walk becomes a flat "expansion" of all postings in the batch into
 a fixed budget E, using the standard ragged-gather construction: an

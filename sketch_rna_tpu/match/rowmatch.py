@@ -1,8 +1,8 @@
-"""Row-parallel candidate matching — the TPU speed-of-light path.
+"""Row-parallel candidate matching — the production match path.
 
 Semantically identical to match/candidates.py (the reference's
 sparse_chain, src/sparse_chaining.cpp:29-115; equality asserted in
-tests/test_rowmatch.py) but shaped for the VPU:
+tests/test_rowmatch.py) but shaped for wide elementwise units:
 
   - posting expansion is PER-READ into a fixed [B, Epr] event window;
     the owning sketch-slot per lane comes from a compare-accumulate
@@ -17,9 +17,6 @@ tests/test_rowmatch.py) but shaped for the VPU:
     zero scatters,
   - the per-read top-C candidate table is one more row sort (single
     packed key when the transcript count permits) + slice.
-
-Measured on v5e (8192x150 bp batch, 2k-transcript index): the global-
-sort formulation runs ~885 ms; this path runs ~49 ms.
 
 The only capacity difference vs candidates.py: the expansion budget is
 per read per k (events_per_read) rather than a batch-global pool; spills
@@ -95,8 +92,7 @@ def row_expand_from_runs(
     j = jnp.arange(Epr, dtype=jnp.int32)[None, :]  # [1, Epr]
     # Find the owning sketch slot for each event lane by scanning the S
     # (small, static) per-read cumsum columns with pure compares — no
-    # gathers at all (TPU gathers run ~100M elem/s; these VPU passes are
-    # bandwidth-trivial).  slot = first s with cum[s] > j; run_begin =
+    # gathers at all.  slot = first s with cum[s] > j; run_begin =
     # cum[slot-1]; sel_start = start[slot].
     run_begin = jnp.zeros((B, Epr), jnp.int32)
     sel_start = jnp.broadcast_to(start[:, 0:1], (B, Epr))
@@ -149,8 +145,9 @@ def sort_event_parts(parts: Sequence[jnp.ndarray]) -> jnp.ndarray:
     When every part has the same power-of-two width and the part count
     is a power of two, each [B, w] part sorts independently and a
     bitonic merge tree combines them — identical output to sorting the
-    concatenation (same value multiset per row, fully sorted), measured
-    faster at multi-k GENCODE shapes (scripts/profile_multik_merge.py).
+    concatenation (same value multiset per row, fully sorted); it was
+    faster at multi-k GENCODE shapes on the accelerator the design was
+    first tuned on (scripts/profile_multik_merge.py).
     Otherwise falls back to the full-width sort.
     """
     if len(parts) == 1:
@@ -259,10 +256,10 @@ def combine_k_tables(
       - top-C selection as in row_events_to_candidates.
 
     This replaces the K-wide event grouping for K > 1 on single-device
-    paths: the round-5 A/B measured that grouping's K-coupling at
-    +6.1 ms/batch (scripts/profile_multik_stages.py) — intersecting
-    C-wide pre-grouped tables does the same work over ~4x fewer lanes
-    with the cheap K=1 grouping branch.  The only capacity difference:
+    paths, whose K-coupling cost time per batch on the accelerator the
+    design was first tuned on (scripts/profile_multik_stages.py) —
+    intersecting C-wide pre-grouped tables does the same work over ~4x
+    fewer lanes with the cheap K=1 grouping branch.  The only capacity difference:
     per-k passing sets truncate at the per-k table capacity BEFORE the
     intersection (the old path truncated after); spills are counted
     per k, never silent, and callers size the per-k capacity at 2*C.
@@ -391,8 +388,7 @@ def row_events_to_candidates(
     else:
         # Multi-k grouping in a FIXED number of row passes (the previous
         # form ran 3 passes PER k over the K-times-wider rows — O(K^2)
-        # lane work; at GENCODE scale the K=2 match scan measured 2.8x
-        # the single-k cost).  A tid's <= K runs are adjacent after the
+        # lane work).  A tid's <= K runs are adjacent after the
         # sort, so the forall-k rule becomes group-level run accounting:
         #   - per-run threshold verdict at its END lane, with each k's
         #     global max selected in (not cumsum'd): ok_run,
@@ -474,8 +470,7 @@ def group_parts_per_k(
     top-Ck table (Ck = min(2*C, w): a window of w lanes holds at most w
     distinct tids, and 2*C headroom keeps pre-intersection truncation
     out of range of the final C); the tables then intersect with score
-    addition.  Replaces the K-wide event grouping whose K-coupling
-    measured +6.1 ms/batch at GENCODE {21,31}
+    addition.  Replaces the K-wide event grouping and its K-coupling
     (scripts/profile_multik_stages.py).
     """
     res_ks = [
@@ -649,13 +644,12 @@ def calibrate_tier_widths_per_k(
 
     Why per-k: the shared-width calibration sizes every k's window to
     the max over ks, so one ambiguous k (k=21 at GENCODE) inflates every
-    other k's expansion lanes — measured at +6.1 ms/batch for {21,31},
-    and a shared-permutation variant couldn't shrink them (max-in-range
-    over the shared order reproduced the max-over-k widths;
-    scripts/profile_match_ablate.py round 5).  The tail tier keeps the
+    other k's expansion lanes, and a shared-permutation variant couldn't
+    shrink them (max-in-range over the shared order reproduced the
+    max-over-k widths; scripts/profile_match_ablate.py).  The tail tier keeps the
     FULL per-read budget: a calibrated tail turns every rare heavy read
     outside the sample batch into a pretail spill -> whole-dataset flat
-    rerun (measured 4x slowdown); tail drops instead mean the budget
+    rerun; tail drops instead mean the budget
     itself is too small, which the expansion-doubling retry handles.
     """
     eprs = _epr_per_k(events_per_read, totals_sorted_per_k.shape[0])

@@ -4,7 +4,7 @@ The checked-in reference binary is Mach-O ARM64 and cannot run here
 (SURVEY.md §2 C15), so per SURVEY.md §4 this module is the golden model:
 a line-faithful scalar reimplementation of the reference's semantics
 (contracts #1-#6 in SURVEY.md §7.0), in float64 like the C++ double math.
-Tests compare the vectorized TPU pipeline against this.
+Tests compare the vectorized device pipeline against this.
 
 It deliberately keeps the reference's algorithmic quirks:
   - unnormalized EM M-step pi = posterior_sum + pc/R + pc

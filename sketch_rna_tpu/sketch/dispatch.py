@@ -1,11 +1,9 @@
 """Sketch-stage dispatch: one helper every pipeline call site uses.
 
 The production path is the jnp windowed-XOR hash (fused by XLA into one
-VMEM pass) + two dedup row sorts.  A hand-written Pallas dispatch branch
-was removed in round 3 after production A/B on a real v5e chip: jnp/XLA
-800.4k reads/s vs the fused Pallas kernel 720.1k vs the unfused Pallas
-hash 795.8k (bench config, k=31).  The kernels live on in
-hash/pallas_hash.py as a validated negative result.
+elementwise pass) + two dedup row sorts.  A hand-written fused sketch
+kernel lost its A/B against this on the accelerator the design was
+first built for and was removed (docs/DESIGN.md).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""FracMinHash sketching: threshold filter + set-dedup, TPU-vectorized.
+"""FracMinHash sketching: threshold filter + set-dedup, vectorised.
 
 Reference semantics (createSketch_FracMinhash_direct, src/sketch.cpp:24-39):
   threshold = (uint32_t)(UINT32_MAX * fraction)      [C cast truncates]
   keep a k-mer iff its (low-32-bit) forward ntHash <= threshold
   the sketch is a SET: duplicates collapse, multiplicity is discarded.
 
-TPU-first shape (SURVEY.md §7.4 "Set semantics"): per read we produce a
+Accelerator shape (SURVEY.md §7.4 "Set semantics"): per read we produce a
 fixed-capacity, ascending-sorted row of distinct kept hashes with a
 validity mask.  Dedup is sort-based: masked-out and duplicate entries are
 replaced by the sentinel 0xFFFFFFFF and compacted with a second sort.
@@ -85,10 +85,10 @@ def dedup_select(hs: jnp.ndarray, capacity: int):
     Returns (hashes [B, capacity] ascending sentinel-padded, mask,
     n_overflow) exactly as sketch_batch documents.
 
-    Two full-width row sorts beat a sort + rank-select binary search on
-    TPU (measured: the 8 take_along_axis gathers of the rank-select
-    variant cost 2x the second sort — VPU row sorts are cheap, gathers
-    are not).
+    Two full-width row sorts replace a sort + rank-select binary search:
+    the rank-select variant's 8 take_along_axis gathers cost 2x the
+    second sort on the accelerator this was first tuned on (not yet
+    re-measured on the GPU).
     """
     B, nk = hs.shape
     hs = jnp.sort(hs, axis=-1)

@@ -1,4 +1,4 @@
-"""jax.profiler integration (the TPU equivalent of the reference's gprof
+"""jax.profiler integration (the equivalent of the reference's gprof
 workflow, SURVEY.md §5: '-g -pg' + gprof report).
 
 Set SKETCH_TPU_PROFILE=/some/dir to capture an XLA trace around the

@@ -1,37 +1,39 @@
-"""Speed-of-light accounting: judge measured throughput against hardware
-peaks, not only against the driver target.
+"""Speed-of-light accounting: judge measured throughput against the
+device's published peaks.
 
-The quant pipeline does almost no matmul FLOPs — at 788k reads/s the
-hash work is ~3 GOP/s, a rounding error against the MXU — so the
-relevant rooflines are the VPU (elementwise 32-bit ops: hashing, row
-sorts, scans) and HBM bandwidth (the bucket-probe row gather, table
-reads/writes).  QuantResult.sizes carries EXACT static counts of the
-shapes the device processed (pipeline._match_tables); this module turns
-them + phase times into achieved rates and fraction-of-peak.
-
-Peaks (TPU v5e / "v5 lite", public figures):
-  HBM bandwidth  ~819 GB/s
-  MXU            197 TFLOP/s bf16 / 98.5 TFLOP/s f32 (unused here)
-  VPU            ~4 T elementwise f32/i32 op/s (8x128 lanes x 4 ALUs;
-                 approximate — used for order-of-magnitude placement)
+The quant pipeline does almost no matrix products, so the relevant
+rooflines are elementwise 32-bit throughput (hashing, scans) and memory
+bandwidth (the bucket-probe row gather, table reads and writes).
+QuantResult.sizes carries exact static counts of the shapes the device
+processed (pipeline._match_tables); this module turns them and phase
+times into achieved rates and shares of peak.  Sorts have no peak to
+divide by and report lanes per second only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
-V5E_HBM_BYTES_PER_S = 819e9
-V5E_VPU_OPS_PER_S = 4e12  # approximate (see module docstring)
-V5E_MXU_F32_PER_S = 98.5e12
+# Published peaks by jax device_kind.  Source: NVIDIA H100 Tensor Core
+# GPU data sheet, SXM part (HBM3 bandwidth; FP32 outside the tensor
+# cores, dense).  A device not listed here is an error, not a default.
+PEAKS: Dict[str, Dict[str, float]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "f32_ops_per_s": 67e12,
+    },
+}
 
-# Row-sort cost model: a bitonic/merge row sort of width w runs
-# O(log^2 w) comparator passes; XLA's v5e row sort measures ~10 lane-ops
-# per lane per pass-pair.  We count lanes x log2(w)^2 as "sort lane-ops"
-# and fold them into the VPU placement.  This is a model, not a measure.
 
-
-def _log2(n: int) -> int:
-    return max(int(n) - 1, 0).bit_length()
+def device_peaks(device_kind: str) -> Dict[str, float]:
+    """Peak rates of one device of this kind (see PEAKS)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add them "
+            "to utils/roofline.PEAKS with their source"
+        ) from None
 
 
 def roofline(
@@ -39,15 +41,17 @@ def roofline(
     timing: Dict[str, float],
     elapsed_s: float,
     em_iterations: int,
+    device_kind: str,
     em_dtype_bytes: int = 4,
 ) -> Dict[str, dict]:
-    """Per-phase achieved rates vs v5e peaks.
+    """Per-phase achieved rates vs the peaks of device_kind.
 
     sizes/timing: QuantResult.sizes / .timing from a run with
     SKETCH_TPU_SYNC_PHASES=1 (per-phase attribution; without it the
     async phases drain at the fetch sync and only end-to-end rates are
     meaningful).  elapsed_s: end-to-end quant wall time.
     """
+    peaks = device_peaks(device_kind)
     out: Dict[str, dict] = {}
     t_match = timing.get("match_scan", 0.0) or elapsed_s
     t_em = timing.get("em_assign", 0.0) or elapsed_s
@@ -60,7 +64,7 @@ def roofline(
         out["hash"] = {
             "ops": hash_ops,
             "gops_per_s": round(rate / 1e9, 2),
-            "frac_vpu_peak": round(rate / V5E_VPU_OPS_PER_S, 4),
+            "frac_f32_peak": round(rate / peaks["f32_ops_per_s"], 4),
         }
     probe_bytes = sizes.get("probe_bytes", 0)
     if probe_bytes:
@@ -68,24 +72,18 @@ def roofline(
         out["probe_gather"] = {
             "bytes": probe_bytes,
             "gb_per_s": round(rate / 1e9, 2),
-            "frac_hbm_peak": round(rate / V5E_HBM_BYTES_PER_S, 4),
+            "frac_hbm_peak": round(rate / peaks["hbm_bytes_per_s"], 4),
         }
     group_lanes = sizes.get("group_lanes", 0)
     if group_lanes:
-        # One grouping row sort over the expansion window (+ cum scans,
-        # ~same order); modeled as log2(w)^2 comparator passes at a
-        # nominal 256-lane window width.
-        sort_ops = group_lanes * (_log2(256) ** 2) * 10
         out["group_sort"] = {
             "lanes": group_lanes,
-            "lanes_per_s": round(group_lanes / t_match / 1e6, 1),  # Mlanes/s
-            "modeled_vpu_ops": sort_ops,
-            "frac_vpu_peak": round(sort_ops / t_match / V5E_VPU_OPS_PER_S, 4),
+            "mlanes_per_s": round(group_lanes / t_match / 1e6, 1),
         }
     em_lanes = sizes.get("em_lanes", 0)
     if em_lanes and em_iterations:
         # Per iteration per lane: gather pi (4B) + write posterior (4B)
-        # + segsum/scatter traffic (~8B) — ~16B/lane of HBM.
+        # + scatter traffic (~8B) — ~16B/lane of device memory.
         em_bytes = em_lanes * em_iterations * (4 * em_dtype_bytes)
         rate = em_bytes / t_em
         out["em"] = {
@@ -93,21 +91,17 @@ def roofline(
             "iterations": em_iterations,
             "lane_iters_per_s": round(em_lanes * em_iterations / t_em / 1e6, 1),
             "modeled_gb_per_s": round(rate / 1e9, 2),
-            "frac_hbm_peak": round(rate / V5E_HBM_BYTES_PER_S, 4),
+            "frac_hbm_peak": round(rate / peaks["hbm_bytes_per_s"], 4),
         }
-    # The binding constraint: largest fraction-of-peak across phases.
+    # The binding constraint: largest share of peak across phases.
     bound, frac = None, 0.0
     for name, d in out.items():
-        f = max(d.get("frac_hbm_peak", 0.0), d.get("frac_vpu_peak", 0.0))
+        f = max(d.get("frac_hbm_peak", 0.0), d.get("frac_f32_peak", 0.0))
         if f > frac:
             bound, frac = name, f
     out["summary"] = {
+        "device_kind": device_kind,
         "dominant_bound": bound,
         "frac_of_peak": round(frac, 4),
-        "note": (
-            "fractions are against one v5e chip's peaks; low fractions "
-            "mean the pipeline is latency/occupancy bound (small kernels, "
-            "sorts, syncs), not bandwidth-starved"
-        ),
     }
     return out

@@ -1,11 +1,9 @@
-"""Synthetic transcriptome/read generation ON DEVICE.
+"""Seeded synthetic transcriptomes and reads, and their FASTA/FASTQ files.
 
-Benchmarks and scale checks need millions of synthetic reads; host
-numpy generation is orders of magnitude too slow on weak-CPU hosts
-(measured: ~50 s for 75M-element int64 ops), so sampling runs as jitted
-device code: transcript picks, offsets and the big base-gather all
-execute on the accelerator, and only the final packed uint8 array ever
-crosses back — or stays on device for the quant path.
+Read sampling runs as jitted device code (transcript picks, offsets and
+the base gather), so millions of reads are drawn in one program and
+either stay on the device for the quant path or are framed into FASTQ
+on the host with vectorised numpy.
 """
 
 from __future__ import annotations
@@ -86,3 +84,57 @@ def sample_reads_device(
         read_len=read_len,
         pad_len=pad_len,
     )
+
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def write_fasta(path: str, seqs: List[np.ndarray], name_fmt: str = "T{:06d}") -> List[str]:
+    """One-line-per-sequence FASTA of base-code arrays; returns the names."""
+    names = [name_fmt.format(i) for i in range(len(seqs))]
+    with open(path, "wb", buffering=1 << 24) as fh:
+        for name, s in zip(names, seqs):
+            fh.write(b">" + name.encode() + b"\n" + _BASES[s].tobytes() + b"\n")
+    return names
+
+
+def frame_fastq(codes: np.ndarray, start_id: int) -> bytes:
+    """[n, L] uint8 base codes -> FASTQ bytes with fixed-width ids
+    ('@r' + 10 digits), all L bases written, quality 'I'."""
+    n, L = codes.shape
+    head = 13
+    rec_len = head + L + 3 + L + 1
+    rec = np.empty((n, rec_len), dtype=np.uint8)
+    rec[:, 0] = ord("@")
+    rec[:, 1] = ord("r")
+    ids = np.arange(start_id, start_id + n, dtype=np.int64)
+    for d in range(10):
+        rec[:, 2 + d] = (ids // 10 ** (9 - d)) % 10 + ord("0")
+    rec[:, 12] = ord("\n")
+    rec[:, head : head + L] = _BASES[codes]
+    rec[:, head + L] = ord("\n")
+    rec[:, head + L + 1] = ord("+")
+    rec[:, head + L + 2] = ord("\n")
+    rec[:, head + L + 3 : head + L + 3 + L] = ord("I")
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
+def write_fastq(
+    path: str,
+    seqs: List[np.ndarray],
+    n_reads: int,
+    read_len: int,
+    chunk: int = 2_000_000,
+) -> None:
+    """Sample n_reads reads of read_len bases from seqs on the device, in
+    chunks with per-chunk seeds, and frame them into a FASTQ file."""
+    written = 0
+    with open(path, "wb", buffering=1 << 24) as fh:
+        while written < n_reads:
+            n = min(chunk, n_reads - written)
+            codes, _ = sample_reads_device(
+                seqs, n, read_len, read_len, 1000 + written % 997
+            )
+            fh.write(frame_fastq(np.asarray(codes), written))
+            written += n

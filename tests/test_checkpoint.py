@@ -77,7 +77,7 @@ def test_timing_utils():
 def test_quantify_kill_and_resume_e2e(tmp_path):
     """Interrupted quant (EM stopped mid-budget, checkpoint on disk) then
     a resumed full run == one uninterrupted run, through the public
-    quantify() + config.em_checkpoint path (VERDICT r1 #7)."""
+    quantify() + config.em_checkpoint path."""
     import dataclasses
 
     import numpy as np

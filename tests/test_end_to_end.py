@@ -131,7 +131,7 @@ def test_cli_chunked_stream_route_matches_fused(fixture_files, monkeypatch):
 
 
 def test_cli_em_flags_match_default(fixture_files):
-    """--em-segsum on / --em-mxu on must plumb through and reproduce the
+    """--em-segsum on must plumb through and reproduce the
     default route's CSV within float32 summation-order tolerance."""
     tmp, fasta, fastq, names, seqs, reads, read_names = fixture_files
     idx_path = str(tmp / "ref_ef.skidx.npz")
@@ -140,7 +140,7 @@ def test_cli_em_flags_match_default(fixture_files):
     run_cli(["-o", "quant", idx_path, str(fastq), base])
     with open(base) as fh:
         base_rows = list(csv.DictReader(fh))
-    for flag, value in (("--em-segsum", "on"), ("--em-mxu", "on")):
+    for flag, value in (("--em-segsum", "on"),):
         out = str(tmp / f"out_ef_{flag.strip('-').replace('-', '_')}.csv")
         run_cli(["-o", "quant", flag, value, idx_path, str(fastq), out])
         with open(out) as fh:

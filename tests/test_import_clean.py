@@ -25,7 +25,6 @@ import sketch_rna_tpu.dist.quant_sharded
 import sketch_rna_tpu.dist.quant_stream
 import sketch_rna_tpu.dist.multihost
 import sketch_rna_tpu.em.checkpoint
-import sketch_rna_tpu.hash.pallas_hash
 import sketch_rna_tpu.index.refbin
 import sketch_rna_tpu.io.native
 import sketch_rna_tpu.oracle.reference_oracle

@@ -69,7 +69,8 @@ def test_artifact_roundtrip(tmp_path, records):
 
 @pytest.mark.slow  # runs the full build twice
 def test_build_backends_identical(records, monkeypatch):
-    """The CPU-backend build (default) and the accelerator-path kernels
+    """The CPU-backend build (the default without an accelerator) and
+    the accelerator-path kernels
     (_hash_pos_batch + device pair sort) must produce identical CSR
     arrays — the backend is a performance choice, never a semantic one."""
     recs, _ = records

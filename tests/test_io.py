@@ -63,7 +63,7 @@ def test_fastq_header_heuristic_and_full_id(tmp_path):
 def test_fastq_invalid_duplicate_does_not_clobber(tmp_path):
     # The reference only inserts VALIDATED reads into read_sketches
     # (src/main.cpp:132-150): a later invalid or too-short record with
-    # the same ID must not erase an earlier valid read (ADVICE r1).
+    # the same ID must not erase an earlier valid read.
     p = tmp_path / "dup.fq"
     p.write_text(
         "@r1\nACGTACGTACGT\n+\nIIIIIIIIIIII\n"

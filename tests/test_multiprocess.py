@@ -4,7 +4,7 @@ devices each -> a 4-device global mesh), each parsing only its
 byte-range slice of the FASTQ through the actual CLI, must reproduce
 the single-process CSV exactly.
 
-This is the N=2-host test VERDICT r1 asked for: collectives cross a
+This is the N=2-host test: collectives cross a
 process boundary (gloo), data is process-local, and only process 0
 writes output.
 """

@@ -210,7 +210,7 @@ def test_srol_tables_match_reference_binary():
     seeds + srol and requires each to appear verbatim in the binary —
     so a wrong seed, a wrong base assignment, or any deviation in the
     33/31 split-rotation fails here against the real library, not
-    against a reimplementation trusting itself (VERDICT r1 missing #1).
+    against a reimplementation trusting itself.
     """
     import struct
 

@@ -55,7 +55,7 @@ def test_cli_sharded_flag(tmp_path):
 
 def test_quantify_sharded_empty_reads():
     # R == 0 must yield the same clean empty result as quantify(), not
-    # inf pi from the pc/0 EM term (ADVICE r1).
+    # inf pi from the pc/0 EM term.
     rng = np.random.default_rng(57)
     seqs = make_transcriptome(rng, n=6, len_range=(60, 200))
     recs = FastaRecords([f"T{i}" for i in range(len(seqs))], [decode(s) for s in seqs], 0)

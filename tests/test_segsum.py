@@ -78,8 +78,8 @@ def _tables(rng, n_rows, width, T, with_weight=True):
 
 
 def test_quantify_segsum_on_matches_off(rng):
-    """Full pipeline with em_segsum forced on (the auto gate only fires
-    on TPU) vs the scatter path: same rows, float32-order-only drift."""
+    """Full pipeline with em_segsum forced on (auto never selects it) vs
+    the scatter path: same rows, float32-order-only drift."""
     import dataclasses
 
     from sketch_rna_tpu.config import QuantConfig
@@ -101,7 +101,6 @@ def test_quantify_segsum_on_matches_off(rng):
         batch_size=512,
         max_read_len=128,
         em_dtype="float32",
-        em_mxu="off",
         em_segsum="off",
     )
     idx = build_index(recs, cfg)
